@@ -1,4 +1,4 @@
-// vcfc_host: native host runtime for the TPU codec engine.
+// vcfc_host: native host runtime for the device codec engine.
 //
 // The device kernels (vcfc_tpu.ops.rle) produce/consume *positional flag*
 // matrices: a (L, S) uint8 plane holding the .vcfc flag byte at each
@@ -175,8 +175,8 @@ extern "C" void vcfc_unpack(const uint8_t* raw, const int64_t* line_off,
 }
 
 // Packed variant of vcfc_unpack for the device-unpack decode route
-// (ops/rle.py::unpack_packed_flags expands packed->positional on the
-// MXU): emits each line's flag BYTES left-aligned into a (L, M) row
+// (ops/rle.py::unpack_packed_flags expands packed->positional with a
+// batched matmul): emits each line's flag BYTES left-aligned into a (L, M) row
 // instead of materializing the O(L*W) positional plane — host work and
 // host->device traffic scale with the compressed size, not the cohort
 // width.  Status/escape semantics identical to vcfc_unpack.
@@ -491,7 +491,7 @@ extern "C" void vcfc_render(const uint8_t* raw, const int64_t* line_off,
 
 // Text-plane variant of vcfc_render for the device-render route
 // (VCFC_PARSE=device): the device already synthesized the "a|b\t" sample
-// words (ops/pallas_rle.py::pallas_text_decode), so sample runs are
+// words (ops/rle.py::text_rle_decode), so sample runs are
 // straight memcpys from the (L, TW)-byte text plane; escape columns
 // still splice their raw ASCII over the device's "?|?" placeholder.
 // Sizes and layout match vcfc_render exactly (vcfc_measure_render).

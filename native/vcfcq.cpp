@@ -1424,7 +1424,7 @@ void vcfz_block_lines_sel(const Vcfz& z, size_t b, const uint8_t* want,
   // not O(lines x samples).  The old dense grid walked ~3x the cell
   // count in memsets, byte-select resolves, and run re-scans; on
   // LD-correlated data segments are ~10x fewer than cells (VCFC_PROF
-  // breakdown in docs/KERNEL_CEILING.md).
+  // breakdown).
   const uint64_t S = z.n_samples;
   const uint32_t m_base = uint32_t(z.n_symbols - S - 1);  // v4/v6 only
   bool vertical = z.version == 4 || z.version == 6 || z.version == 7;
@@ -2257,8 +2257,8 @@ int do_decompress_z(const char* in_path, const char* out_path) {
 // Perf probe: time the entropy-decode stage alone (full-block symbol
 // decode over every block, no line reconstruction / render / IO), with
 // a per-phase split for the v7/v8 two-phase path.  Output is one JSON
-// line; this is the isolation harness behind docs/KERNEL_CEILING.md's
-// host-decode breakdown, not a user-facing verb.
+// line; this is the isolation harness for the host-decode breakdown,
+// not a user-facing verb.
 int do_bench_decode_syms(const char* in_path) {
   Mapped m;
   if (!map_file(in_path, &m)) die(std::string("cannot open ") + in_path);

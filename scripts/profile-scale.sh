@@ -10,7 +10,7 @@
 # in docs/eval/scale/.
 set -euo pipefail
 cd "$(dirname "$0")/.."
-export VCFC_FORCE_CPU=1
+export JAX_PLATFORMS=cpu
 
 mkdir -p eval-work docs/eval/scale
 python - <<'EOF'

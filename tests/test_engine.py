@@ -78,7 +78,7 @@ class TestRleKernels:
 
     def test_device_unpack_decode_route(self, monkeypatch):
         """VCFC_UNPACK=device: host extracts packed flag bytes, device
-        does the MXU unpack fused with the run-fill — lossless and
+        does the matmul unpack fused with the run-fill — lossless and
         byte-identical to the standard route on mixed corpora (escapes,
         run caps, SVs)."""
         from test_fuzz import make_vcf

@@ -1,9 +1,6 @@
 """Wide-cohort scaling (VERDICT r1 #5 / r2 #5): biobank-scale sample
 widths must stay byte-identical to the oracle, with the adaptive line
-batch bounding device memory.  Since r3 the fused Pallas kernels cover
-widths to MAX_WIDTH=65536 (Mersenne remainders + adaptive tile
-heights; the 2x-wider text kernels to 49152 — max_fused_width(2));
-only wider cohorts route to XLA."""
+batch bounding device memory."""
 
 import numpy as np
 import pytest
@@ -27,33 +24,6 @@ class TestAdaptiveLineBatch:
     def test_extreme_width_floors_at_256(self):
         assert engine._adaptive_line_batch(2048, 1 << 20) == 256
 
-    def test_width_routing_policy(self, monkeypatch):
-        """r3: fused kernels now cover wide cohorts (Mersenne remainders
-        + adaptive tile heights); only absurd widths route to XLA."""
-        from vcfc_tpu.ops.pallas_rle import MAX_WIDTH
-        from vcfc_tpu.ops.rle import rle_decode, rle_encode
-
-        monkeypatch.setenv("VCFC_KERNEL", "pallas")
-        assert engine._use_pallas(16384)
-        assert engine._use_pallas(MAX_WIDTH)
-        assert not engine._use_pallas(MAX_WIDTH + 128)
-        monkeypatch.setenv("VCFC_KERNEL", "xla")
-        assert engine._kernels(16384) == (rle_encode, rle_decode)
-
-    def test_text_kernel_width_gate(self, monkeypatch):
-        """ADVICE r3: the text kernels' i32 tiles are 2x the u8 ones, so
-        their fused-width bound halves; beyond it the 8-row tile floor
-        would overrun the scoped-VMEM budget."""
-        from vcfc_tpu.ops.pallas_rle import _block_l, max_fused_width
-
-        assert max_fused_width(2) == 49152
-        monkeypatch.setenv("VCFC_KERNEL", "pallas")
-        assert engine._use_pallas(max_fused_width(2), shrink=2)
-        assert not engine._use_pallas(max_fused_width(2) + 128, shrink=2)
-        assert _block_l(max_fused_width(2), shrink=2) == 8
-        with pytest.raises(ValueError, match="VMEM budget"):
-            _block_l(max_fused_width(2) + 128, shrink=2)
-
 
 class TestWideCohorts:
     @pytest.mark.parametrize("samples,variants", [(16384, 24), (50000, 8)])
@@ -66,7 +36,7 @@ class TestWideCohorts:
         assert back == vcf, f"device decompress not lossless at S={samples}"
 
     def test_wide_unpack_kernel(self):
-        """The MXU unpack holds at wide widths too (M far below S_pad)."""
+        """The matmul unpack holds at wide widths too (M far below S_pad)."""
         from vcfc_tpu.ops.rle import rle_encode, unpack_packed_flags
 
         rng = np.random.default_rng(3)
@@ -84,11 +54,11 @@ class TestWideCohorts:
 
 
 class TestMultiTileWide:
-    """VERDICT r3 #6: wide widths with enough LINES to span multiple
-    device tile grids, the MAX_WIDTH padding boundary, and escape-heavy
-    wide rows — all byte-identical to the oracle and lossless.  (The
-    real-chip twins of these shapes are the BASELINE.md wide-cohort
-    rows; interpret-mode kernel equality lives in test_pallas.py.)"""
+    """VERDICT r3 #6: wide widths with enough LINES to span several
+    line batches, a cohort padded to exactly 65,536 samples, and
+    escape-heavy wide rows — all byte-identical to the oracle and
+    lossless.  (Kernel-level equality with a reference encoder lives in
+    test_rle_kernels.py.)"""
 
     @pytest.mark.parametrize("samples,variants", [(16384, 260), (50000, 256)])
     def test_multi_tile_byte_identity(self, samples, variants):
@@ -99,12 +69,9 @@ class TestMultiTileWide:
         assert engine.decompress(got, force_device=True) == vcf
 
     def test_max_width_padding_boundary(self):
-        """S chosen so the padded width lands EXACTLY on MAX_WIDTH=65536
-        (the widest the fused kernels accept; wider routes to XLA)."""
-        from vcfc_tpu.ops.pallas_rle import MAX_WIDTH
-
-        S = MAX_WIDTH - 100  # pads to 65,536 exactly
-        assert (S + 127) // 128 * 128 == MAX_WIDTH
+        """A cohort whose padded width lands exactly on 65,536."""
+        S = (1 << 16) - 100
+        assert (S + 127) // 128 * 128 == 1 << 16
         vcf = make_vcf(911, S, 10, sv_every=5)
         want = compress_bytes(vcf)
         got = engine.compress(vcf, force_device=True)

@@ -17,9 +17,9 @@ import numpy as np
 from .host import native
 from .host.assemble import assemble_vcf, assemble_vcfc, parse_vcfc_bytes
 from .host.parse import parse_vcf_bytes
-from .ops.rle import rle_decode, rle_encode
+from .ops.rle import rle_decode, rle_encode, text_rle_decode, text_rle_encode
 
-_LINE_BATCH = 2048  # multiple of the Pallas BLOCK_L=256 (enforced below)
+_LINE_BATCH = 2048
 # Below this many genotype cells the XLA compile + dispatch overhead
 # dominates; route through the host oracle instead.
 _DEVICE_MIN_CELLS = 1 << 18
@@ -43,61 +43,17 @@ def _force_device(flag: bool) -> bool:
 
 def _adaptive_line_batch(line_batch: int, s_pad: int) -> int:
     """Shrink the line batch for wide sample axes so a batch never exceeds
-    ~_TARGET_BATCH_CELLS genotype cells (stays a multiple of the Pallas
-    BLOCK_L=256; floor 256)."""
+    ~_TARGET_BATCH_CELLS genotype cells (floor 256 lines; shrunk batches
+    stay multiples of 256 so nearby widths share compiled shapes)."""
     cap = _TARGET_BATCH_CELLS // s_pad // 256 * 256
     return max(256, min(line_batch, cap))
-
-
-def _use_pallas(s_pad: int, shrink: int = 1) -> bool:
-    """Fused Pallas kernels on TPU (VCFC_KERNEL=pallas forces them, =xla
-    forbids); widths beyond the fused kernels' VMEM budget (beyond any
-    real cohort — ops.pallas_rle.max_fused_width: 65,536 for the code
-    kernels, 49,152 for the 2x-wider text kernels) route to XLA, which
-    tiles internally."""
-    from .ops.pallas_rle import max_fused_width
-
-    choice = os.environ.get("VCFC_KERNEL", "auto")
-    if choice == "xla" or s_pad > max_fused_width(shrink):
-        return False
-    if choice != "pallas":
-        import jax
-
-        try:
-            if jax.devices()[0].platform != "tpu":
-                return False
-        except Exception:
-            return False
-    return True
-
-
-def _kernels(s_pad: int = 0):
-    """Select device RLE kernels for the padded sample width."""
-    if _use_pallas(s_pad):
-        from .ops.pallas_rle import pallas_rle_decode, pallas_rle_encode
-
-        return pallas_rle_encode, pallas_rle_decode
-    return rle_encode, rle_decode
-
-
-def _text_kernels(s_pad: int = 0):
-    """Select the fused text<->flags kernels (classify+encode /
-    decode+render) for the VCFC_PARSE=device routes (shrink=2: their
-    i32 text tiles halve the width the VMEM budget covers)."""
-    if _use_pallas(s_pad, shrink=2):
-        from .ops.pallas_rle import pallas_text_decode, pallas_text_encode
-
-        return pallas_text_encode, pallas_text_decode
-    from .ops.rle import text_rle_decode, text_rle_encode
-
-    return text_rle_encode, text_rle_decode
 
 
 def _compress_device_text(
     vcf: bytes, line_batch: int, force_device: bool = False
 ) -> bytes | None:
-    """VCFC_PARSE=device route: ASCII classification moves onto the chip
-    (fused classify+encode, ops/pallas_rle.py::pallas_text_encode) — the
+    """VCFC_PARSE=device route: ASCII classification moves onto the device
+    (fused classify+encode, ops/rle.py::text_rle_encode) — the
     host's per-byte classify pass disappears; what remains host-side is
     line indexing, a strided text gather (memcpy-class), and escape
     splicing during assembly.  Replaces the reference's per-sample scan
@@ -128,7 +84,6 @@ def _compress_device_text(
     irregular = (line_end - sample_start) != (4 * S - 1)
     S_pad = max(_round_up(S, 128), 128)
     line_batch = _adaptive_line_batch(line_batch, S_pad)
-    encode_fn, _ = _text_kernels(S_pad)
     flagpos = np.zeros((L, S_pad), np.uint8)
     nseg = np.zeros(L, np.int32)
     seps = np.ones(L, np.int32)
@@ -141,7 +96,7 @@ def _compress_device_text(
         ir = np.ones(line_batch, np.uint8)
         ir[: hi - lo] = irregular[lo:hi]
         text = native.gather_text(body, ss, ir, S, S_pad)
-        futures.append((lo, hi, encode_fn(text.view(np.int32), S)))
+        futures.append((lo, hi, text_rle_encode(text.view(np.int32), S)))
     for lo, hi, (f, k, r) in futures:
         flagpos[lo:hi] = np.asarray(f)[: hi - lo]
         nseg[lo:hi] = np.asarray(k)[: hi - lo]
@@ -160,7 +115,7 @@ def _compress_device_text(
 def compress(vcf: bytes, line_batch: int = _LINE_BATCH, force_device: bool = False) -> bytes:
     """Device-path compress: parse -> RLE encode on device -> assemble."""
     force_device = _force_device(force_device)
-    line_batch = _round_up(max(line_batch, 1), 256)  # Pallas BLOCK_L granularity
+    line_batch = max(line_batch, 1)
     if native.available() and os.environ.get("VCFC_PARSE") == "device":
         out = _compress_device_text(vcf, line_batch, force_device)
         if out is not None:
@@ -180,14 +135,13 @@ def compress(vcf: bytes, line_batch: int = _LINE_BATCH, force_device: bool = Fal
         flagpos = np.zeros((L, S_pad), np.uint8)
         nseg = np.zeros(L, np.int32)
 
-        encode_fn, _ = _kernels(S_pad)
         # dispatch all batches first (async), then fetch
         futures = []
         for lo in range(0, L, line_batch):
             hi = min(lo + line_batch, L)
             batch = np.zeros((line_batch, S_pad), np.uint8)
             batch[: hi - lo, :S] = parsed.codes[lo:hi]
-            futures.append((lo, hi, encode_fn(batch, S)))
+            futures.append((lo, hi, rle_encode(batch, S)))
         for lo, hi, (f, k) in futures:
             flagpos[lo:hi] = np.asarray(f)[: hi - lo]
             nseg[lo:hi] = np.asarray(k)[: hi - lo]
@@ -346,17 +300,16 @@ def decompress_stream(src, dst, chunk_bytes: int | None = None) -> int:
 _SHARDED_STEPS: dict = {}
 
 
-def _sharded_step_for(mesh, s_pad: int):
-    """Memoize the jitted sharded step per (mesh, width): a fresh
-    shard_map closure per call would miss the jit cache and retrace
-    every invocation.  Width selects fused-vs-XLA kernels inside the
-    shard body (parallel/shard._kernels_for)."""
-    key = (tuple(d.id for d in mesh.devices.flat), mesh.axis_names, s_pad)
+def _sharded_step_for(mesh):
+    """Memoize the jitted sharded step per mesh: a fresh shard_map
+    closure per call would miss the jit cache and retrace every
+    invocation."""
+    key = (tuple(d.id for d in mesh.devices.flat), mesh.axis_names)
     step = _SHARDED_STEPS.get(key)
     if step is None:
         from .parallel.shard import make_sharded_encode_step
 
-        step = _SHARDED_STEPS[key] = make_sharded_encode_step(mesh, s_pad)
+        step = _SHARDED_STEPS[key] = make_sharded_encode_step(mesh)
     return step
 
 
@@ -384,14 +337,10 @@ def compress_sharded(vcf: bytes, mesh=None) -> bytes:
     n_dev = mesh.devices.size
     S_pad = max(_round_up(S, 128), 128)
     # chunked like the single-device path: one fixed-shape compile, and
-    # device memory bounded by the batch cap instead of the whole file.
-    # 256*n_dev granularity: every shard's row count stays a multiple of
-    # the fused kernels' tile height (they run inside the shard body on
-    # TPU meshes — parallel/shard._kernels_for)
-    chunk = _round_up(
-        max(_adaptive_line_batch(_LINE_BATCH, S_pad), 1), 256 * n_dev
-    )
-    step = _sharded_step_for(mesh, S_pad)
+    # device memory bounded by the batch cap instead of the whole file;
+    # the chunk splits evenly over the mesh's data axis
+    chunk = _round_up(_adaptive_line_batch(_LINE_BATCH, S_pad), n_dev)
+    step = _sharded_step_for(mesh)
     flagpos = np.zeros((L, S_pad), np.uint8)
     nseg = np.zeros(L, np.int32)
     for lo in range(0, L, chunk):
@@ -412,13 +361,13 @@ def compress_sharded(vcf: bytes, mesh=None) -> bytes:
     return assemble_vcfc(parsed, flagpos, nseg)
 
 
-def _sharded_decode_step_for(mesh, s_pad: int):
-    key = (tuple(d.id for d in mesh.devices.flat), mesh.axis_names, "decode", s_pad)
+def _sharded_decode_step_for(mesh):
+    key = (tuple(d.id for d in mesh.devices.flat), mesh.axis_names, "decode")
     step = _SHARDED_STEPS.get(key)
     if step is None:
         from .parallel.shard import make_sharded_decode_step
 
-        step = _SHARDED_STEPS[key] = make_sharded_decode_step(mesh, s_pad)
+        step = _SHARDED_STEPS[key] = make_sharded_decode_step(mesh)
     return step
 
 
@@ -453,12 +402,9 @@ def decompress_sharded(vcfc: bytes, mesh=None) -> bytes:
     n_dev = mesh.devices.size
     W = parsed.flags.shape[1]
     S_pad = max(_round_up(max(S, W), 128), 128)
-    # chunked like compress_sharded: bounded device memory, one compile,
-    # 256*n_dev granularity for the per-shard fused-kernel tiles
-    chunk = _round_up(
-        max(_adaptive_line_batch(_LINE_BATCH, S_pad), 1), 256 * n_dev
-    )
-    step = _sharded_decode_step_for(mesh, S_pad)
+    # chunked like compress_sharded: bounded device memory, one compile
+    chunk = _round_up(_adaptive_line_batch(_LINE_BATCH, S_pad), n_dev)
+    step = _sharded_decode_step_for(mesh)
     codes = np.zeros((L, S_pad), np.uint8)
     decoded = np.zeros(L, np.int32)
     for lo in range(0, L, chunk):
@@ -485,7 +431,7 @@ def _decompress_device_unpack(
     vcfc: bytes, line_batch: int, force_device: bool = False
 ):
     """VCFC_UNPACK=device route: the host extracts PACKED flag bytes
-    (O(compressed size)) and the device does the packed->positional MXU
+    (O(compressed size)) and the device does the packed->positional matmul
     unpack fused with the run-fill (ops/rle.py::unpack_rle_decode) —
     no O(L*W) positional plane on the host, H2D traffic ~8x smaller on
     typical cohorts.  Returns (bytes, None) on success; (None, scan)
@@ -513,7 +459,7 @@ def _decompress_device_unpack(
 
     M = parsed.flags.shape[1]
     S_pad = max(_round_up(S, 128), 128)
-    # the MXU unpack's indicator operands cost ~M*(S_pad/128 + 128)*2
+    # the matmul unpack's indicator operands cost ~M*(S_pad/128 + 128)*2
     # bytes of bf16 PER LINE — unlike the dense kernels, memory scales
     # with the flag density M, so cap the batch by that too; het- or
     # escape-dense inputs where even a 256-line batch exceeds the budget
@@ -543,8 +489,8 @@ def _decompress_device_unpack(
 
 def _decompress_device_text(parsed, line_batch: int, force_device: bool) -> bytes | None:
     """VCFC_PARSE=device decode route: the fused decode+render kernel
-    (ops/pallas_rle.py::pallas_text_decode) emits "a|b\\t" ASCII words on
-    the chip; host assembly memcpys the text plane and splices escapes
+    (ops/rle.py::text_rle_decode) emits "a|b\\t" ASCII words on
+    the device; host assembly memcpys the text plane and splices escapes
     (host/fast.py::assemble_vcf_from_text).  The host LUT-render pass
     disappears; D2H ships 4 text bytes/sample instead of 1 code byte —
     choose by transfer vs host-compute balance.  Returns None to fall
@@ -560,7 +506,6 @@ def _decompress_device_text(parsed, line_batch: int, force_device: bool) -> byte
     W = parsed.flags.shape[1]
     S_pad = max(_round_up(max(S, W), 128), 128)
     line_batch = _adaptive_line_batch(line_batch, S_pad)
-    _, decode_fn = _text_kernels(S_pad)
     text = np.zeros((L, 4 * S_pad), np.uint8)
     decoded = np.zeros(L, np.int32)
     futures = []
@@ -568,7 +513,7 @@ def _decompress_device_text(parsed, line_batch: int, force_device: bool) -> byte
         hi = min(lo + line_batch, L)
         batch = np.zeros((line_batch, S_pad), np.uint8)
         batch[: hi - lo, :W] = parsed.flags[lo:hi]
-        futures.append((lo, hi, decode_fn(batch, S)))
+        futures.append((lo, hi, text_rle_decode(batch, S)))
     for lo, hi, (t, _c, d) in futures:
         # i32 words -> little-endian byte plane, zero-copy view
         text[lo:hi] = np.asarray(t).view(np.uint8)[: hi - lo]
@@ -579,7 +524,7 @@ def _decompress_device_text(parsed, line_batch: int, force_device: bool) -> byte
 def decompress(vcfc: bytes, line_batch: int = _LINE_BATCH, force_device: bool = False) -> bytes:
     """Device-path decompress: unpack stream -> RLE decode on device -> render."""
     force_device = _force_device(force_device)
-    line_batch = _round_up(max(line_batch, 1), 256)  # Pallas BLOCK_L granularity
+    line_batch = max(line_batch, 1)
     use_native = native.available()
     scan = None
     if use_native and os.environ.get("VCFC_UNPACK") == "device":
@@ -606,7 +551,7 @@ def decompress(vcfc: bytes, line_batch: int = _LINE_BATCH, force_device: bool = 
     W = parsed.flags.shape[1]
     if use_native and os.environ.get("VCFC_EXECUTOR", "device") == "host":
         # host executor: thread-parallel run-fill in C++ — useful when
-        # device transfers dominate (e.g. tunneled chips)
+        # device transfers dominate
         codes = native.expand_codes(parsed.flags, S)
         decoded = np.full(L, S, np.int32)  # unpack already validated shape
     else:
@@ -615,7 +560,6 @@ def decompress(vcfc: bytes, line_batch: int = _LINE_BATCH, force_device: bool = 
         codes = np.zeros((L, S_pad), np.uint8)
         decoded = np.zeros(L, np.int32)
 
-        _, decode_fn = _kernels(S_pad)
         # dispatch all batches first (async), then fetch: overlaps H2D,
         # compute, and D2H across batches
         futures = []
@@ -623,7 +567,7 @@ def decompress(vcfc: bytes, line_batch: int = _LINE_BATCH, force_device: bool = 
             hi = min(lo + line_batch, L)
             batch = np.zeros((line_batch, S_pad), np.uint8)
             batch[: hi - lo, :W] = parsed.flags[lo:hi]
-            futures.append((lo, hi, decode_fn(batch, S)))
+            futures.append((lo, hi, rle_decode(batch, S)))
         for lo, hi, (c, d) in futures:
             codes[lo:hi] = np.asarray(c)[: hi - lo]
             decoded[lo:hi] = np.asarray(d)[: hi - lo]

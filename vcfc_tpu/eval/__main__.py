@@ -12,13 +12,6 @@ import argparse
 import os
 import sys
 
-if os.environ.get("VCFC_FORCE_CPU"):
-    # same knob as the CLI (cli.py): pin JAX to CPU before any backend
-    # init so a flaky accelerator link can't hang a measurement sweep
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 from .config import Dataset, HarnessConfig
 from .graphs import GRAPHERS
 from .harness import OPERATIONS, Harness

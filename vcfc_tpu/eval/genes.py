@@ -3,7 +3,7 @@
 The reference resolves 13 clinically notable gene symbols to GRCh37
 coordinates (Ensembl REST lookup cached in a local sqlite db,
 query.py:81-143) and times each scheme over those regions, 3 iterations
-per gene.  This is its TPU-native twin:
+per gene.  This is its twin here:
 
   * same sqlite cache schema (gene_name/reference_name/start/end);
   * Ensembl GRCh37 REST lookup when the network exists, else a vendored
@@ -30,13 +30,6 @@ import os
 import sqlite3
 import subprocess
 import time
-
-if os.environ.get("VCFC_FORCE_CPU"):
-    # same knob as the CLI (cli.py): pin JAX to CPU before any backend
-    # init so a flaky accelerator link can't hang a benchmark run
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 # Vendored GRCh37 symbol spans for the reference's gene list
 # (query.py:145-161).  Source: Ensembl GRCh37 symbol lookup.

@@ -208,7 +208,7 @@ class SchemeFactory:
 
     def vcfc_manifest_native(self, force_rebuild: bool = False) -> PreparedScheme | None:
         """Point/range queries over the `.vcfcm` columnar manifest through
-        the native CLI, one process per query — the TPU-native index
+        the native CLI, one process per query — the framework's own index
         design (explicit offset tables, one decode per matching line;
         index/manifest.py) under the same per-process protocol as the
         binned and tabix schemes.  Reads scale with the HIT count, not

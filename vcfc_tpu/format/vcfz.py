@@ -81,7 +81,7 @@ MAGIC = b"VCFZ"
 # 38-byte block entries); v4 = v3 plus vertical prediction (N_CTX_V4
 # books, MATCH-run symbol band); v5 = v3's layout with ONE order-0
 # symbol codebook — the opt-in device-decode container: order-0 streams
-# are what the gather-free bit-parallel TPU decoder
+# are what the gather-free bit-parallel device decoder
 # (ops/huffman_device.py) accepts, at a measured ~10-20% ratio cost vs
 # v3's context books; v6 = v4's vertical prediction with v5's single
 # order-0 book — the device-decodable container for LD-correlated
@@ -263,7 +263,7 @@ def symbol_streams(vcfc: bytes, recs=None):
 # block's first line is always literal, so random access per block is
 # preserved.  Escape cells never match (text equality is not implied by
 # code equality).  The transform is a dense (lines x samples) rows
-# comparison — the TPU-friendly formulation; the reference has no
+# comparison — the device-friendly formulation; the reference has no
 # cross-variant modeling at all.
 
 # single source of truth for the flag scheme: format/constants.py
@@ -705,7 +705,7 @@ def vcfz_from_vcfc(
     v3's ratio — no vertical transform).
 
     ``route`` (default: the VCFZ_PACK env var) selects the entropy-coding
-    backend: "device" runs symbol emission and Huffman bit packing as TPU
+    backend: "device" runs symbol emission and Huffman bit packing as device
     kernels (ops/vcfz_device.py), byte-identical to the host writer;
     structurally unsupported inputs fall back to the host path."""
     if version not in (1, 2, 3, 4, 5, 6, 7, 8):

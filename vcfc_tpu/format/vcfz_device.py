@@ -150,13 +150,12 @@ def vcfz_from_vcfc_device(
         sympos_v4,
     )
 
-    # On-chip compaction (sort_compact) makes the device->host transfer
-    # O(outputs) — payload words and symbol streams — instead of the
-    # dense O(cells) word/symbol planes, and the escape plane is
+    # On-device compaction (sort_compact) makes the device->host
+    # transfer O(outputs) — payload words and symbol streams — instead
+    # of the dense O(cells) word/symbol planes, and the escape plane is
     # scattered on-device from sparse triples.  Byte-identical either
-    # way; default ON for the TPU backend per the on-chip A/B
-    # (scripts/tpu_compact_ab.py, docs/KERNEL_CEILING.md), overridable
-    # with VCFZ_COMPACT=device|host.
+    # way; the backend picks the default (ops/vcfz_device.py::
+    # device_compaction), VCFZ_COMPACT=device|host overrides it.
     from ..ops.vcfz_device import device_compaction
 
     dev_compact = device_compaction()
@@ -362,7 +361,7 @@ def vcfz_from_vcfc_device(
         if dev_compact:
             # compact-space pack: one sort front-compacts each block's
             # symbols, then the codeword lookup (the dense packer's
-            # dominant cost — ~7.6 ns/cell on chip, table-size-flat)
+            # dominant per-cell cost)
             # runs over O(symbols) lanes instead of the full grid
             from ..ops.vcfz_device import _bucket, pack_cells_compact, sort_compact
 

@@ -1,4 +1,4 @@
-"""Block manifest (.vcfcm): TPU-friendly random access.
+"""Block manifest (.vcfcm): filesystem-independent random access.
 
 The reference's random-access structures depend on filesystem holes and
 SEEK_DATA probing (SURVEY.md §3.4) — OS-coupled and pointer-chasing.

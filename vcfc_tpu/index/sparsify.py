@@ -21,7 +21,7 @@ lookups or use SEEK_DATA + linear next-distance hops for ranges
 (query_sparse_file_fd, main.cpp:235-582).
 
 The design is intentionally OS-coupled (EXT4/XFS holes); we reproduce it
-for drop-in compatibility.  The TPU-friendly replacement is the block
+for drop-in compatibility.  The filesystem-independent replacement is the block
 manifest in ``vcfc_tpu.index.manifest``.
 """
 

@@ -18,8 +18,7 @@ N_SYMBOLS = 5
 def code_histogram(codes: jax.Array) -> jax.Array:
     """Count occurrences of each code in a (L, S) uint8 matrix -> (5,) int64-ish.
 
-    One-hot + sum reduces on the MXU-friendly path; XLA lowers this to a
-    single fused reduction.
+    One-hot + sum; XLA lowers this to a single fused reduction.
     """
     one_hot = (codes[..., None] == jnp.arange(N_SYMBOLS, dtype=codes.dtype)).astype(
         jnp.int32

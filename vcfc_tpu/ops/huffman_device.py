@@ -2,8 +2,7 @@
 
 The classic objection to entropy decode on SIMD hardware is the serial
 bit cursor: symbol k+1's offset is unknown until symbol k's length is
-decoded, and per-lane bitstream cursors need dynamic gathers (20-50x
-slower than dense work on TPU — CLAUDE.md kernel invariant).  This
+decoded, and per-lane bitstream cursors need dynamic gathers.  This
 module decodes a canonical order-0 bitstream with NEITHER a serial
 cursor NOR gathers, using three observations:
 

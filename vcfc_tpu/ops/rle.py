@@ -1,8 +1,8 @@
 """Device RLE codec: vectorized run-length encode/decode of genotype codes.
 
-TPU-first design: where the reference walks samples byte-at-a-time in a
-scalar loop (compress.cpp:124-186, 832-954), we operate on a dense
-(lines x samples) uint8 code matrix with data-parallel VPU primitives.
+Device-first design: where the reference walks samples byte-at-a-time
+in a scalar loop (compress.cpp:124-186, 832-954), we operate on a dense
+(lines x samples) uint8 code matrix with data-parallel vector scans.
 
 Representation: *positional flags*.  A legal .vcfc flag byte is never
 0x00 (its count field is >= 1), so a (L, S) matrix holding the flag byte
@@ -17,10 +17,10 @@ O(L*S) work on this form; the native host runtime (or numpy fallback)
 performs the tiny O(runs-per-line) positional<->packed transforms
 during file I/O.
 
-Why: profiled on TPU v5e, the dense scans run at ~3-4 Gcell/s while any
-scatter/gather-based compaction or expansion is 20-50x slower (XLA
-serializes 2-D scatters; lane gathers are similarly slow).  The
-positional form needs neither:
+Why: the positional form needs no scatter or gather — every stage is
+a dense elementwise op or a prefix scan over the sample axis, which
+XLA fuses (whether a scatter formulation would be faster on the GPU is
+an open question, ROADMAP Queue 3):
 
   encode:  run boundaries  = shifted-compare + per-code run-cap splitting
            run starts      = cummax segmented scan
@@ -91,9 +91,8 @@ def rle_encode(codes: jax.Array, n_samples: jax.Array):
     run_start = jax.lax.cummax(jnp.where(new_run, idx, -1), axis=1)
     # boundary: every run-cap-th position within a run.  Both remainders
     # use CONSTANT divisors (escape runs have cap 1 but always start a new
-    # run, so d == 0 and rem31 == 0 there): a data-dependent divisor
-    # lowers to a full vector integer division, ~25x the cost of the
-    # strength-reduced constant form (profiled on TPU v5e).
+    # run, so d == 0 and rem31 == 0 there): the compiler strength-reduces
+    # a constant divisor, a data-dependent one is a full integer division.
     d = idx - run_start
     rem = jnp.where(c == 0, d % 127, d % 31)
     boundary = (rem == 0) & (idx < n_samples)
@@ -175,8 +174,7 @@ def rle_decode(flagpos: jax.Array, n_samples: jax.Array):
 
 @jax.jit
 def text_rle_encode(text: jax.Array, n_samples):
-    """XLA twin of pallas_rle.pallas_text_encode: fused ASCII classify +
-    RLE encode.  ``text`` is (L, S_pad) int32 — one little-endian
+    """Fused ASCII classify + RLE encode.  ``text`` is (L, S_pad) int32 — one little-endian
     "a|b\\t" word per 4-byte sample field.  Returns (flagpos, nseg,
     seps_ok) with seps_ok == 0 marking rows whose separator bytes are
     not tabs (mis-sliced irregular lines the caller routes to the
@@ -199,8 +197,7 @@ def text_rle_encode(text: jax.Array, n_samples):
 
 @jax.jit
 def text_rle_decode(flagpos: jax.Array, n_samples):
-    """XLA twin of pallas_rle.pallas_text_decode: fused RLE decode +
-    ASCII render.  Returns (text int32 "a|b\\t" words — "?|?" escape
+    """Fused RLE decode + ASCII render.  Returns (text int32 "a|b\\t" words — "?|?" escape
     placeholders, '\\n' terminating sample n-1 —, codes, decoded)."""
     L, S_pad = flagpos.shape
     code, decoded = rle_decode(flagpos, n_samples)
@@ -229,7 +226,7 @@ def render_text(codes) -> "jax.Array":
 
 @functools.partial(jax.jit, static_argnames=("out_width",))
 def unpack_rle_decode(flags: jax.Array, nflags: jax.Array, n_samples, *, out_width: int):
-    """Fused device decode from FILE flag bytes: MXU packed->positional
+    """Fused device decode from FILE flag bytes: matmul packed->positional
     unpack + run-fill in one jit (the VCFC_UNPACK=device engine route —
     host work and H2D traffic scale with the compressed size)."""
     return rle_decode(
@@ -251,12 +248,11 @@ def unpack_packed_flags(flags: jax.Array, nflags: jax.Array, *, out_width: int):
         [end_j == p]  =  [end_j >> 7 == p >> 7] * [end_j & 127 == p & 127],
 
     which turns the redistribution into a batched
-    (W/128, M) x (M, 128) matmul that runs on the MXU systolic array —
-    no 2-D scatter, no lane gather (CLAUDE.md kernel invariant; scatters
-    profiled 20-50x slower than dense work on TPU v5e).  bf16 operands
-    are exact: flag bytes are < 256 (8-bit significand covers them), the
-    indicators are 0/1, at most one term per output position is nonzero,
-    and the MXU accumulates in f32.
+    (W/128, M) x (M, 128) bf16 matmul (cuBLAS on the GPU) — no 2-D
+    scatter, no lane gather.  bf16 operands are exact: flag bytes are
+    < 256 (8-bit significand covers them), the indicators are 0/1, at
+    most one term per output position is nonzero, and the product
+    accumulates in f32 (bf16 operands never take the TF32 path).
 
     Precondition (same as the rest of the positional representation):
     escape flags carry count 1 — the writer never emits more

@@ -11,7 +11,7 @@ job fan-out, run-all.sh:25).  Here, hosts cooperate on ONE file:
      line-count partition as ever (_stripe over the global line index);
   2. each encodes its stripe with the local device mesh (engine fast path);
   3. per-stripe compressed byte counts are all-gathered across processes
-     on device (tiny int64 vector, rides DCN), giving every process a
+     on device (tiny int64 vector), giving every process a
      deterministic exclusive output offset — fixed by process index, not
      arrival order (SURVEY.md §7 hard part 3);
   4. symbol histograms are psum-merged for the global .vcfz codebook;
@@ -25,6 +25,7 @@ same collective code paths under the virtual-device mesh).
 
 from __future__ import annotations
 
+import glob
 import os
 import tempfile
 
@@ -33,13 +34,32 @@ import jax.numpy as jnp
 import numpy as np
 
 
+def local_card_count() -> int:
+    """NVIDIA cards on this machine (``/dev/nvidia<N>`` device nodes),
+    counted without initializing a JAX backend — jax.distributed must
+    be initialized before any backend is."""
+    return len(glob.glob("/dev/nvidia[0-9]*"))
+
+
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> None:
-    """jax.distributed bring-up; no-op when unconfigured (single host)."""
+               process_id: int | None = None,
+               local_device_ids: list[int] | None = None) -> None:
+    """jax.distributed bring-up; no-op when unconfigured (single host).
+
+    Several processes on one machine each open ONE card: ``process_id %
+    local_card_count()`` unless the caller names the cards.  Without it
+    every process would open, and reserve memory on, every card."""
     if coordinator_address is None and num_processes is None:
         return
-    jax.distributed.initialize(coordinator_address, num_processes, process_id)
+    if local_device_ids is None and process_id is not None:
+        n_cards = local_card_count()
+        if n_cards:
+            local_device_ids = [process_id % n_cards]
+    jax.distributed.initialize(
+        coordinator_address, num_processes, process_id,
+        local_device_ids=local_device_ids,
+    )
 
 
 def _stripe(n_lines: int, n_procs: int, pid: int) -> tuple[int, int]:

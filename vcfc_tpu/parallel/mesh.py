@@ -2,9 +2,10 @@
 
 The engine is data-parallel over variant lines (every compressed line is
 self-contained — the property the reference's per-line format guarantees,
-compress.cpp:5).  A 1-D mesh over all devices carries the line axis;
-collectives (psum for histograms, all_gather for shard byte counts) ride
-ICI within a slice.
+compress.cpp:5).  A flat 1-D mesh over all devices carries the line axis;
+the collectives (psum for histograms, all_gather for shard byte counts)
+are tiny, and every card reaches every other at the same rate, so the
+mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -89,7 +89,7 @@ def timing_probe(label: str):
 @contextlib.contextmanager
 def device_trace(trace_dir: str | None = None):
     """Device-side profiling: wraps ``jax.profiler.trace`` so eval runs can
-    capture XLA/TPU traces alongside the host TIMING probes (SURVEY.md §5:
+    capture XLA device traces alongside the host TIMING probes (SURVEY.md §5:
     same phase taxonomy on the host side; device events come from the
     profiler).  No-op when ``trace_dir`` is falsy; view with
     ``tensorboard --logdir <dir>`` or xprof."""
